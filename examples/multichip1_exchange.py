@@ -1,4 +1,4 @@
-"""Sharded counting over a device mesh (TPU-native; no reference analogue).
+"""Sharded counting over a device mesh (no reference analogue).
 
 Runs on any platform: forces an 8-device virtual CPU mesh if fewer
 devices are present.

@@ -1,9 +1,9 @@
-"""gatb_core_tpu — a TPU-native k-mer / de Bruijn graph engine.
+"""gatb_core_tpu — a JAX k-mer / de Bruijn graph engine.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
+A from-scratch JAX/XLA framework with the capabilities of
 GATB-core (k-mer counting, Bloom/MPHF membership structures, de Bruijn
 graphs, unitig compaction, graph simplification, assembly traversal,
-sequence banks, HDF5 storage), designed TPU-first: SPMD sharding over
+sequence banks, HDF5 storage), designed for accelerators: SPMD sharding over
 device meshes, sort/segment-reduce counting kernels, all-to-all minimizer
 exchange, pointer-doubling unitig compaction.
 

@@ -1,6 +1,6 @@
 """FASTA/FASTQ sequence banks (host-side input pipeline).
 
-TPU-native equivalent of gatb-core's bank layer (src/gatb/bank/):
+Equivalent of gatb-core's bank layer (src/gatb/bank/):
   - BankFasta: FASTA/FASTQ parser incl. gzip, multi-file comma URIs
     (bank/impl/BankFasta.cpp; 256KB buffered gzread there, buffered Python
     file IO here — parsing feeds the host->device pipeline and is overlapped

@@ -1,8 +1,8 @@
 """Bloom filters as device bit tensors with batched probe kernels.
 
-TPU-native equivalent of gatb-core's IBloom family (tools/collections/impl/
+Device equivalent of gatb-core's IBloom family (tools/collections/impl/
 Bloom.hpp:113-1290). The reference's synchronized/cache-coherent variants
-exist to manage CPU atomics and cache lines; on TPU the build is a scatter
+exist to manage CPU atomics and cache lines; on the device the build is a scatter
 of idempotent True writes and the query is a vectorized gather — so one
 implementation covers Bloom/BloomSynchronized/BloomCacheCoherent use cases.
 

@@ -1,4 +1,4 @@
-"""BooPHF-style minimal perfect hash (BBHash algorithm), TPU-native.
+"""BooPHF-style minimal perfect hash (BBHash algorithm), on the device.
 
 Reference: gatb-core's BooPHF wrapper (tools/collections/impl/BooPHF.hpp:230-340)
 over the vendored BBHash (thirdparty/BooPHF/BooPHF.h): a cascade of level
@@ -8,7 +8,7 @@ through to the next level; leftovers after the last level go to a small exact
 fallback. The code of a key is the rank of its set bit across all levels
 (gamma = 3.0 for fast build, BooPHF.hpp:269).
 
-TPU design: the query is branch-free and constant-time — per level one
+Device design: the query is branch-free and constant-time — per level one
 64-bit hash (ops/u64.py pair arithmetic), one bitvector word gather, one
 prefix-rank gather and a `lax.population_count`; levels are unrolled (static
 count). Ranks use per-word prefix popcounts so no select/scan runs at query

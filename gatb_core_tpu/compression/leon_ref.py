@@ -20,8 +20,8 @@ HDF5 container —
 
 The decoder is host-side scalar Python (u64 int arithmetic): Leon decode
 is a sequential adaptive-model process with data-dependent branching —
-the anti-TPU workload — and runs once per file at I/O speed; the TPU
-path consumes the decoded reads downstream.
+a poor fit for a data-parallel device — and runs once per file at
+I/O speed; the device path consumes the decoded reads downstream.
 """
 
 from __future__ import annotations

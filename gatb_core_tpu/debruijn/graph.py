@@ -34,6 +34,7 @@ from ..kmer.model import string_to_kmer, kmer_to_string, canonical
 from ..ops.kmer_ops import nb_limbs, py_to_limbs, kmers_to_py
 from ..ops.neighbor_ops import neighbor_candidates
 from ..storage import hdf5 as storage_mod
+from ..storage.filedir import open_storage
 from ..storage.hdf5 import (
     Storage, STATE_SORTING_COUNT_DONE, STATE_BRANCHING_DONE,
     STATE_ADJACENCY_DONE, STATE_BLOOM_DONE, STATE_DEBLOOM_DONE,
@@ -160,7 +161,7 @@ class Graph:
 
         storage = None
         if output is not None:
-            storage = Storage(output, "w")
+            storage = open_storage(output, "w")
             storage_mod.save_config(storage, result.info)
             storage_mod.save_solid(storage, result.solid_kmers,
                                    result.solid_counts, kmer_size)
@@ -228,7 +229,7 @@ class Graph:
     def load(cls, uri: str) -> "Graph":
         """Reopen a persisted graph; resumes after completed stages
         (configure_visitor equivalent, Graph.cpp:766-802)."""
-        storage = Storage(uri, "a")
+        storage = open_storage(uri, "a")
         if not storage.check_state(STATE_SORTING_COUNT_DONE):
             raise ValueError(f"{uri}: no completed counting stage")
         limbs, counts = storage_mod.load_solid(storage)

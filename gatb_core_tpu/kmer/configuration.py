@@ -3,7 +3,7 @@
 Bit-faithful port of the reference's resource planner
 (kmer/impl/ConfigurationAlgorithm.cpp:300-466): from a bank estimate and
 memory/disk budgets it derives the number of counting passes and
-partitions. On TPU the same plan bounds HBM-resident batch volume per
+partitions. On the device the same plan bounds HBM-resident batch volume per
 pass and sizes the minimizer-partition exchange; the formulas (including
 the 0.5*1.2 kxmer/minimizer volume factor and the open-files fallback
 loop) are preserved so plans match the reference's for identical inputs.

@@ -7,7 +7,7 @@ There, a prototype processor is cloned per thread, each clone receives
 one `process(partId, kmer, counts, sum)` call PER KMER of a partition,
 and `finishClones` gathers clone state back into the prototype.
 
-TPU-native reshaping: per-kmer callbacks cannot feed a device pipeline,
+Device reshaping: per-kmer callbacks cannot feed a device pipeline,
 so a "part" here is one DSK pass's merged distinct table — exactly like
 a reference partition, every kmer of a part carries its COMPLETE count
 (passes partition kmers by minimizer, SortingCountAlgorithm.cpp:806) —

@@ -1,6 +1,6 @@
 """LinearCounter: probabilistic distinct-kmer cardinality estimator.
 
-TPU-native port of gatb-core's LinearCounter (kmer/impl/LinearCounter.cpp:
+Device port of gatb-core's LinearCounter (kmer/impl/LinearCounter.cpp:
 43-90): a 1-hash Bloom filter of ``size`` bits; the estimate is the classic
 linear-counting formula ``-size * ln((size - weight) / size)`` where
 ``weight`` is the number of set bits. ``is_accurate`` iff load factor < 0.99

@@ -2,7 +2,7 @@
 
 This mirrors gatb-core's ModelCanonical / ModelMinimizer semantics
 (src/gatb/kmer/impl/Model.hpp) operating on Python ints of arbitrary width,
-for any k. It exists to (a) serve as ground truth in tests for the TPU ops,
+for any k. It exists to (a) serve as ground truth in tests for the device ops,
 (b) provide string <-> kmer utilities for the public API (Graph.toString,
 buildNode, etc. equivalents).
 """

@@ -6,7 +6,7 @@ scanned, kmers per minimizer are censused, and minimizer bins are packed
 into partitions greedily — largest bin into the emptiest partition (a
 priority queue in the reference; a heap here, same assignment order).
 
-On the TPU mesh, the table balances the all-to-all minimizer exchange
+On a device mesh, the table balances the all-to-all minimizer exchange
 (parallel/exchange.py) the same way it balances the reference's
 superkmer partition files (SURVEY §2.11: minimizer skew is power-law;
 greedy packing is the answer to 10x stragglers).

@@ -1,16 +1,18 @@
 """Native host runtime (C++): FASTA/FASTQ parsing + 2-bit batch encoding.
 
-The compute path is JAX/XLA/Pallas on the TPU; this module is the native
+The compute path is JAX/XLA on the device; this module is the native
 counterpart of the reference's C++ host plumbing (BankFasta parser,
 bank/impl/BankFasta.cpp) — it feeds the device pipeline without Python
-per-character overhead. Built lazily with g++ (cached .so next to the
-source); everything degrades to the pure-Python implementations when a
-toolchain is unavailable.
+per-character overhead. Built lazily with g++ from the committed source
+into a .so named after the source's hash (so a stale build is never
+loaded); callers fall back to the pure-Python implementations when a
+toolchain is unavailable, and ``build_error()`` says why.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -19,39 +21,59 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "fastx.cpp")
-_SO = os.path.join(_DIR, "_fastx.so")
 _lock = threading.Lock()
 _lib = None
 _lib_failed = False
+_build_error: str | None = None
 
 
-def _build() -> bool:
+def _so_path() -> str:
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_DIR, f"_fastx-{digest}.so")
+
+
+def _build(so: str) -> bool:
+    global _build_error
+    tmp = f"{so}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-           "-o", _SO + ".tmp", _SRC, "-lz"]
+           "-o", tmp, _SRC, "-lz"]
     try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=300)
-        os.replace(_SO + ".tmp", _SO)
+        subprocess.run(cmd, check=True, capture_output=True, text=True,
+                       timeout=300)
+        os.replace(tmp, so)
         return True
-    except (OSError, subprocess.SubprocessError):
-        return False
+    except subprocess.CalledProcessError as exc:
+        _build_error = f"{' '.join(cmd)}\n{exc.stderr}"
+    except (OSError, subprocess.SubprocessError) as exc:
+        _build_error = f"{' '.join(cmd)}\n{exc}"
+    return False
+
+
+def build_error() -> str | None:
+    """Why the native library is unavailable (compiler or loader
+    message), or None if it loaded or was never requested."""
+    return _build_error
 
 
 def get_lib():
-    """Load (building if stale) the native library, or None if unavailable."""
-    global _lib, _lib_failed
+    """Load (building on first use) the native library, or None if
+    unavailable."""
+    global _lib, _lib_failed, _build_error
     with _lock:
         if _lib is not None or _lib_failed:
             return _lib
+        so = _so_path()
         try:
-            stale = (not os.path.exists(_SO)
-                     or os.path.getmtime(_SO) < os.path.getmtime(_SRC))
-            if stale and not _build():
+            if not os.path.exists(so) and not _build(so):
                 _lib_failed = True
                 return None
-            lib = ctypes.CDLL(_SO)
-        except OSError:
+            lib = ctypes.CDLL(so)
+        except OSError as exc:
+            _build_error = f"loading {so}: {exc}"
             _lib_failed = True
             return None
+
         lib.fastx_open.restype = ctypes.c_void_p
         lib.fastx_open.argtypes = [ctypes.c_char_p, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_int]

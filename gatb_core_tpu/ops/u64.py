@@ -1,7 +1,6 @@
 """Vectorized 64-bit unsigned arithmetic emulated with uint32 (hi, lo) pairs.
 
-TPUs have no native 64-bit integer ALU; XLA emulates int64 poorly and only
-under the global x64 flag. The framework therefore represents every 64-bit
+JAX supports 64-bit integers only under the global x64 flag. The framework therefore represents every 64-bit
 quantity (hash values, Bloom indices, kmer words) as a pair of uint32 arrays
 ``(hi, lo)``. All ops below are elementwise and shape-polymorphic, and are
 bit-exact matches of C uint64_t semantics (wrap-around on overflow).

@@ -1,11 +1,11 @@
 """Multi-chip counting step: minimizer-partition all-to-all over the mesh.
 
-This is the TPU-native equivalent of DSK's minimizer->partition spill
+This is the device equivalent of DSK's minimizer->partition spill
 (SortingCountAlgorithm::fillPartitions, kmer/impl/SortingCountAlgorithm.cpp:
 1211-1345): instead of superkmer files + per-file mutexes, each device
 extracts the kmers of its read shard, assigns each kmer a partition from its
 minimizer, and the partitions are exchanged via `jax.lax.all_to_all` over the
-ICI mesh so that device p receives every kmer whose partition is p. Each
+mesh so that device p receives every kmer whose partition is p. Each
 device then sorts + segment-reduces its partitions locally (the counting
 kernel, replacing PartitionsCommand's radix sort + 453-way merge).
 

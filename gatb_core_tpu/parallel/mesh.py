@@ -2,7 +2,7 @@
 
 The reference's only parallel substrate is a pthread pool pulling batches
 from a shared iterator (Dispatcher, designpattern/impl/Command.hpp). The
-TPU-native equivalent is SPMD over a 1-D data mesh: reads are sharded over
+device equivalent is SPMD over a 1-D data mesh: reads are sharded over
 axis "d" and kmers are re-sharded by minimizer partition via all-to-all
 (see exchange.py and SURVEY.md §2.11).
 """
@@ -14,9 +14,9 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 DATA_AXIS = "d"
-# 2-D production topology (SURVEY §5.8): the counting exchange's
-# all-to-all rides the fast intra-host axis (ICI); cross-host reduces
-# (pass-table merge, histogram psum) ride the host axis (DCN)
+# 2-D topology (SURVEY §5.8): the counting exchange's all-to-all rides
+# the intra-host axis; cross-host reduces (pass-table merge, histogram
+# psum) ride the inter-host axis. Not yet run on more than one host.
 HOST_AXIS = "host"
 CHIP_AXIS = "chip"
 
@@ -33,9 +33,10 @@ def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
 
 
 def make_mesh2d(nb_hosts: int, chips_per_host: int, devices=None) -> Mesh:
-    """(host, chip) mesh: chips of one host are ICI-adjacent (JAX device
-    order groups a host's local devices consecutively), hosts talk over
-    DCN. On the CPU backend this simulates the topology for tests."""
+    """(host, chip) mesh: the chips of one host share the intra-host
+    axis (JAX device order groups a host's local devices
+    consecutively); hosts meet on the inter-host axis. On the CPU
+    backend this simulates the topology for tests."""
     if devices is None:
         devices = jax.devices()
     need = nb_hosts * chips_per_host

@@ -5,7 +5,7 @@ the solid table — debloom's 8-probe sweep (DebloomAlgorithm.cpp:270-300),
 adjacency precompute (Graph.cpp:3508-3610) and the unitig list-ranking
 (bcalm_algo.cpp:592-680, bglue_algo.cpp:824-880) all ran single-device.
 This module shards them over the same `jax.sharding.Mesh` the counting
-superbatch driver uses (parallel/superbatch.py), with the same TPU-first
+superbatch driver uses (parallel/superbatch.py), with the same device
 vocabulary:
 
 - The solid table is **range-sharded**: device d owns a contiguous slice

@@ -1,13 +1,13 @@
 """Production-shape multi-chip counting: superbatch exchange driver.
 
-TPU-first redesign of the reference's streaming partition exchange
+Device redesign of the reference's streaming partition exchange
 (SortingCountAlgorithm::fillPartitions + PartitionsCommand,
 kmer/impl/SortingCountAlgorithm.cpp:1211-1600). One jitted shard_map
 dispatch per superbatch does ALL of:
 
   extraction (packed 2-bit words) -> DSK pass filter -> local sort +
   distinct reduce -> kmer-RANGE split (contiguous slices of the sorted
-  table -- no scatters) -> all-to-all over the ICI mesh -> per-device
+  table -- no scatters) -> all-to-all over the mesh -> per-device
   merge into a device-RESIDENT accumulated table (the carry).
 
 Key departures from both the reference and the correctness-grade driver
@@ -15,11 +15,10 @@ in exchange.py, chosen for the hardware:
 
 - **Range partitioning replaces minimizer partitioning.** The reference
   routes by minimizer because superkmers sharing a minimizer compress
-  the disk spill. On TPU the exchange payload is the per-superbatch
+  the disk spill. Here the exchange payload is the per-superbatch
   *distinct table* (already sorted), so routing by kmer RANGE makes
   every device's send segment a contiguous slice (ndev dynamic-slice
-  DMAs, zero scatters -- random scatters run ~50M elem/s on this stack,
-  BASELINE.md) and makes the final global table the plain concatenation
+  copies, zero scatters) and makes the final global table the plain concatenation
   of per-device tables: device d owns range d, each table is sorted, so
   the concatenation IS the globally sorted result. Range boundaries come
   from a sampled census (quantiles of the canonical-kmer distribution --
@@ -140,7 +139,7 @@ def make_superbatch_step(mesh, *, k: int, m: int, nb_passes: int, L: int,
     n_inside (ndev,), n_acc_after (ndev,)).
 
     On a 2-D (host, chip) mesh the all-to-all exchange rides
-    ``exchange_axis`` (the intra-host ICI axis) — each host group
+    ``exchange_axis`` (the intra-host axis) — each host group
     range-partitions ITS reads' kmers among its chips; overflow flags
     psum over ALL ``shard_axes`` so the transactional retry stays
     global. Cross-host merging happens at pass end (make_host_merge).
@@ -206,7 +205,7 @@ def make_superbatch_step(mesh, *, k: int, m: int, nb_passes: int, L: int,
                        for pl in padded], axis=-1)
             for o in range(ndev)])
 
-        # ---- all-to-all over the ICI exchange axis ----------------------
+        # ---- all-to-all over the intra-host exchange axis ---------------
         recv = jax.lax.all_to_all(send, exchange_axis, 0, 0)
         recv_counts = jax.lax.all_to_all(
             send_counts.reshape(ndev, 1), exchange_axis, 0, 0).reshape(ndev)
@@ -251,7 +250,7 @@ def make_superbatch_step(mesh, *, k: int, m: int, nb_passes: int, L: int,
 
 
 def make_host_merge(mesh, *, w: int, cap_acc: int, cap_out: int):
-    """Pass-end cross-host reduce (the DCN collective of SURVEY §5.8):
+    """Pass-end cross-host reduce (the inter-host collective of SURVEY §5.8):
     every chip all-gathers the per-host tables OF ITS KEY RANGE over the
     host axis and reduces them to one sorted distinct table — the merge
     the reference does by concatenating per-thread partition files.
@@ -479,7 +478,7 @@ def count_kmers_distributed_superbatch(
         if group:
             dispatch(group)
 
-        # ---- pass end: cross-host DCN merge (2-D), then ONE host fetch
+        # ---- pass end: cross-host merge (2-D), then ONE host fetch
         # of the concatenated per-range tables ---------------------------
         if two_d:
             cap_out = _next_pow2(nb_hosts * caps["acc"])

@@ -102,7 +102,12 @@ class FileGroup:
         return arr.reshape(meta["shape"])
 
     def __contains__(self, name: str) -> bool:
-        return os.path.exists(self._data_path(name))
+        """A dataset or a subgroup of this group (like h5py's ``in``)."""
+        if os.path.exists(self._data_path(name)):
+            return True
+        full = f"{self._id}.{name}" if self._id else name
+        return any(f == full + ".json" or f.startswith(full + ".")
+                   for f in os.listdir(self._storage.folder))
 
     # ---- byte streams (Storage::ostream/istream) ---------------------
     def ostream(self, name: str) -> OStream:
@@ -190,3 +195,11 @@ class StorageFactory:
         folder = name if name.rstrip("/").endswith("_gatb") \
             else name + "_gatb"
         return os.path.isdir(folder)
+
+
+def open_storage(path: str, mode: str = "a"):
+    """Storage for a graph path: HDF5 for a ``.h5`` path, otherwise the
+    numpy-only file backend (a ``<path>_gatb/`` directory), which needs
+    no h5py."""
+    return StorageFactory.create(
+        path, "hdf5" if path.endswith(".h5") else "file", mode)

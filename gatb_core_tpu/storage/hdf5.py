@@ -1,6 +1,6 @@
 """Persistent hierarchical storage: HDF5-backed Storage/Group tree.
 
-TPU-native equivalent of gatb-core's storage layer (tools/storage/impl/
+Equivalent of gatb-core's storage layer (tools/storage/impl/
 Storage.hpp:166-669, StorageHDF5.hpp): a Storage is a tree of Groups holding
 typed collections (datasets) and string properties; every algorithm persists
 its artifacts into a group, and the file doubles as the checkpoint for
@@ -180,8 +180,11 @@ class Storage(Group):
     """HDF5 storage root (StorageFactory STORAGE_HDF5 equivalent)."""
 
     def __init__(self, path: str, mode: str = "a"):
-        if not HAVE_H5PY:  # pragma: no cover
-            raise RuntimeError("h5py not available")
+        if not HAVE_H5PY:
+            raise RuntimeError(
+                f"{path}: .h5 storage needs the h5py package, which is not "
+                "installed; give a path without the .h5 suffix to use the "
+                "numpy-only file backend (storage/filedir.py)")
         self._f = h5py.File(path, mode)
         super().__init__(self._f)
         self.path = path
@@ -283,13 +286,12 @@ def load_solid(storage: Storage):
     dbgh5 .h5, where dsk/solid is a Partition group of per-minimizer-
     partition datasets 0..P-1 (CountProcessorDump.hpp:94) that are only
     locally sorted — the concatenation is re-sorted globally."""
-    import h5py
-
     k = prop_int(storage, "kmer_size")
     w32 = (2 * k + 31) // 32
     dsk = storage.group("dsk")
-    node = dsk._g.get("solid")
-    if isinstance(node, h5py.Group):  # reference partition layout
+    node = dsk._g.get("solid") if isinstance(dsk, Group) else None
+    if HAVE_H5PY and isinstance(node, h5py.Group):  # reference layout
+
         parts = sorted(node.keys(), key=int)
         rec = np.concatenate([_read_count_records(node[p])
                               for p in parts]) if parts \
@@ -478,12 +480,12 @@ def save_mphf(storage: Storage, mphf, abundance_codes: np.ndarray,
     (None) auto-gates at REF_MPHF_STREAM_MAX_KEYS — the RefBooPHF build
     is a 25-level sequential numpy pass over all keys, minutes of host
     time at tens of millions of kmers (advisor r4); set True (or env
-    GATB_TPU_MPHF_REF=1) to force it for big-table interop, False to
+    GATB_MPHF_REF=1) to force it for big-table interop, False to
     skip (our own loader uses the /mphf group either way)."""
     if ref_stream is None:
         import os as _os
 
-        ref_stream = (_os.environ.get("GATB_TPU_MPHF_REF") == "1"
+        ref_stream = (_os.environ.get("GATB_MPHF_REF") == "1"
                       or solid_limbs is None
                       or len(solid_limbs) <= REF_MPHF_STREAM_MAX_KEYS)
     if ref_stream and solid_limbs is not None and kmer_size is not None:

@@ -78,7 +78,7 @@ def library_info() -> dict:
     version/build metadata, the 'gatb-core-library' info the reference
     stamps into every .h5 (Graph.cpp root xml)."""
     info = {
-        "version": "2.0-tpu",
+        "version": "2.0",
         "build_system": f"{platform.system()}-{platform.release()}",
         "build_compiler": f"python {platform.python_version()}",
         "kmer_sizes": "any (uint32 limb arrays; no compiled span list)",

@@ -85,6 +85,9 @@ def check_graph(graph) -> dict:
 
 
 def main(argv=None) -> int:
+    from ..system.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     p = argparse.ArgumentParser(prog="dbgcheck")
     p.add_argument("-in", dest="input", required=True,
                    help="graph .h5 or reads file")

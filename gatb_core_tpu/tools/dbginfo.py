@@ -10,7 +10,7 @@ import argparse
 import sys
 
 from ..storage import hdf5 as storage_mod
-from ..storage.hdf5 import Storage
+from ..storage.filedir import open_storage
 
 
 STATE_NAMES = [
@@ -25,11 +25,14 @@ STATE_NAMES = [
 
 
 def main(argv=None) -> int:
+    from ..system.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     p = argparse.ArgumentParser(prog="dbginfo")
     p.add_argument("-in", dest="input", required=True, help="graph .h5 file")
     args = p.parse_args(argv)
 
-    with Storage(args.input, "r") as st:
+    with open_storage(args.input, "r") as st:
         print(f"graph        : {args.input}")
         from ..storage.hdf5 import prop_str
         print(f"kmer_size    : {prop_str(st, 'kmer_size')}")

@@ -28,6 +28,9 @@ def topology_matrix(graph) -> np.ndarray:
 
 
 def main(argv=None) -> int:
+    from ..system.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     p = argparse.ArgumentParser(prog="dbgtopology")
     p.add_argument("-in", dest="input", required=True,
                    help="graph .h5 or reads file")

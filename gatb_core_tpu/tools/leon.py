@@ -15,6 +15,9 @@ import time
 
 
 def main(argv=None) -> int:
+    from ..system.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     p = argparse.ArgumentParser(prog="leon")
     p.add_argument("-file", dest="file", required=True)
     p.add_argument("-c", dest="compress", action="store_true",

@@ -2,8 +2,8 @@
 
 Reference: scripts/NewProject/NewProject.sh (+ XXX.cpp/XXX.hpp/main.cpp
 templates) — generates a CMake project linking gatb-core with a Tool
-subclass whose ``execute()`` receives parsed options. The TPU-native
-equivalent emits a Python package with a Tool subclass wired to the same
+subclass whose ``execute()`` receives parsed options. The
+equivalent here emits a Python package with a Tool subclass wired to the same
 option-parser conventions (misc/enums STR_* flag spellings), a CLI main,
 and a pytest smoke test.
 
@@ -81,7 +81,7 @@ def test_{mod}_parser_defaults():
 
 _README = """# {name}
 
-Generated by `gatb_core_tpu.tools.new_project` (the TPU-native analogue of
+Generated by `gatb_core_tpu.tools.new_project` (the analogue of
 GATB-core's scripts/NewProject/NewProject.sh).
 
 Run a tool:

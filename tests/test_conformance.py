@@ -125,8 +125,8 @@ def test_multifile_vs_reference_binary(test_db):
     _check(graph, GOLDEN_MULTI_K31_A2)
 
 
-@pytest.mark.skipif(not os.environ.get("GATB_TPU_SLOW_TESTS"),
-                    reason="slow: ~5M kmers on CPU (set GATB_TPU_SLOW_TESTS=1)")
+@pytest.mark.skipif(not os.environ.get("GATB_SLOW_TESTS"),
+                    reason="slow: ~5M kmers on CPU (set GATB_SLOW_TESTS=1)")
 def test_reads3_k21_vs_reference_binary(test_db):
     graph = Graph.create(f"{test_db}/reads3.fa.gz", kmer_size=21,
                          abundance_min=2, batch_reads=4096)

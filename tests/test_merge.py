@@ -80,7 +80,7 @@ def test_from_count_batch():
         km = np.stack([(batches[i] >> np.uint64(32)).astype(np.uint32),
                        batches[i].astype(np.uint32)], axis=-1)
         t = count_batch(jnp.asarray(km), jnp.asarray(valid[i]),
-                        spare_bits=True, use_pallas=False)
+                        spare_bits=True)
         ks.append(np.asarray(t.kmers))
         cs.append(np.asarray(t.counts))
         cap = t.capacity

@@ -96,13 +96,36 @@ def test_counting_native_vs_python_path(test_db):
 
     path = os.path.join(test_db, "reads1.fa")
     r_nat = count_kmers(path, kmer_size=25, abundance_min=2)
-    os.environ["GATB_TPU_NO_NATIVE"] = "1"
+    os.environ["GATB_NO_NATIVE"] = "1"
     try:
         r_py = count_kmers(path, kmer_size=25, abundance_min=2)
     finally:
-        del os.environ["GATB_TPU_NO_NATIVE"]
+        del os.environ["GATB_NO_NATIVE"]
     assert np.array_equal(r_nat.solid_kmers, r_py.solid_kmers)
     assert np.array_equal(r_nat.solid_counts, r_py.solid_counts)
     assert r_nat.info["kmers_nb_valid"] == r_py.info["kmers_nb_valid"]
     assert r_nat.info["sequences_number"] == r_py.info["sequences_number"]
     assert r_nat.info["sequences_size"] == r_py.info["sequences_size"]
+
+
+def test_so_name_follows_the_source(tmp_path, monkeypatch):
+    """The built library is named after the source's hash, so an edited
+    source is rebuilt even where file times cannot be trusted."""
+    src = tmp_path / "fastx.cpp"
+    src.write_text("int a;\n")
+    monkeypatch.setattr(native, "_SRC", str(src))
+    first = native._so_path()
+    src.write_text("int b;\n")
+    assert native._so_path() != first
+    assert os.path.basename(first).startswith("_fastx-")
+
+
+def test_build_failure_keeps_the_compiler_message(tmp_path, monkeypatch):
+    src = tmp_path / "broken.cpp"
+    src.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "_SRC", str(src))
+    monkeypatch.setattr(native, "_build_error", None)
+    assert not native._build(str(tmp_path / "_fastx-x.so"))
+    err = native.build_error()
+    assert "g++" in err and "broken.cpp" in err
+    assert not os.path.exists(tmp_path / "_fastx-x.so")

@@ -207,9 +207,9 @@ def test_superbatch_overflow_retry_exact():
 
 
 @pytest.mark.skipif(
-    not __import__("os").environ.get("GATB_TPU_SLOW_TESTS"),
+    not __import__("os").environ.get("GATB_SLOW_TESTS"),
     reason="slow: ~1.2M distinct on the CPU mesh "
-           "(set GATB_TPU_SLOW_TESTS=1)")
+           "(set GATB_SLOW_TESTS=1)")
 def test_distributed_million_distinct_with_skew():
     """>=1M-distinct multi-device equality (VERDICT r4 item 7): a
     repeat-heavy genome (25% = 60 copies of one 5 kb segment) skews the

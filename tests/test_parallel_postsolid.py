@@ -119,8 +119,8 @@ def test_full_graph_build_on_mesh(fixture):
 
 
 def test_2d_mesh_counting_equals_single_device():
-    """(host, chip) mesh: exchange over the intra-host chip (ICI) axis,
-    pass-end cross-host merge over the host (DCN) axis
+    """(host, chip) mesh: exchange over the intra-host chip axis,
+    pass-end cross-host merge over the inter-host axis
     (parallel/superbatch.make_host_merge) — equal to the single-device
     count on a 2x4 mesh, multi-pass."""
     from gatb_core_tpu.bank.fasta import BankStrings

@@ -42,7 +42,7 @@ def test_count_planes_matches_dict(spare):
     valid = rng.random(n) > 0.2
     planes = to_planes(vals)
     out_p, counts, nd, overflow = count_planes(
-        planes, jnp.asarray(valid), spare_bits=spare, use_pallas=False)
+        planes, jnp.asarray(valid), spare_bits=spare)
     nd = int(nd)
     assert not bool(overflow)
     keys, cnts = np_count(vals[valid])
@@ -53,28 +53,30 @@ def test_count_planes_matches_dict(spare):
     assert (np.asarray(counts)[nd:] == 0).all()
 
 
-def test_count_planes_pallas_interpret():
-    # same pipeline through the Pallas tiled sort (interpret mode)
-    import jax
+@pytest.mark.parametrize("w", [1, 2, 4])
+@pytest.mark.parametrize("run", [1, 4, 64, 512])
+@pytest.mark.parametrize("sentinels", [0.0, 0.3])
+def test_merge_sorted_runs(w, run, sentinels):
+    """The fold's bitonic merge level turns pairs of ascending runs into
+    ascending runs of twice the length, all-ones sentinel rows last."""
+    from gatb_core_tpu.ops.sortops import _merge_sorted_runs
 
-    rng = np.random.default_rng(7)
-    n = 2048
-    vals = rng.integers(0, 300, n).astype(np.uint64)
-    valid = rng.random(n) > 0.1
-    planes = to_planes(vals)
-    from gatb_core_tpu.ops import sortops
-    from gatb_core_tpu.ops.pallas_sort import sort_u32_limbs
-
-    # emulate the pallas path by sorting through sort_u32_limbs(interpret)
-    enc, extra = sortops._encode_invalid(planes, jnp.asarray(valid), False)
-    out = sort_u32_limbs(enc, tile_log2=9, interpret=True)
-    inv = out[0] != 0
-    out_p, counts, nd, _ = count_sorted_planes(out[1:], inv)
-    keys, cnts = np_count(vals[valid])
-    nd = int(nd)
-    assert nd == len(keys)
-    assert (from_planes(out_p, nd) == keys).all()
-    assert (np.asarray(counts)[:nd] == cnts).all()
+    rng = np.random.default_rng(run * 10 + w)
+    n = 4 * run if run >= 128 else 1024
+    rows = rng.integers(0, 50, (n, w)).astype(np.uint32)
+    rows[rng.random(n) < sentinels] = 0xFFFFFFFF
+    runs = []
+    for i in range(0, n, run):      # ascending runs of length `run`
+        blk = rows[i:i + run]
+        runs.append(blk[np.lexsort(blk.T[::-1])])
+    rows = np.concatenate(runs)
+    out = _merge_sorted_runs(tuple(jnp.asarray(rows[:, j])
+                                   for j in range(w)), run)
+    got = np.stack([np.asarray(x) for x in out], axis=1)
+    for i in range(0, n, 2 * run):
+        blk = rows[i:i + 2 * run]
+        np.testing.assert_array_equal(got[i:i + 2 * run],
+                                      blk[np.lexsort(blk.T[::-1])])
 
 
 def test_count_sorted_planes_cap_and_overflow():
@@ -107,7 +109,7 @@ def test_merge_tables_planes():
     pa, ca_j, na = pad_planes_pow2(to_planes(ka), jnp.asarray(ca))
     pb, cb_j, nb = pad_planes_pow2(to_planes(kb), jnp.asarray(cb))
     out_p, counts, n, ov = merge_tables_planes(
-        pa, ca_j, na, pb, cb_j, nb, cap_out=2048, use_pallas=False)
+        pa, ca_j, na, pb, cb_j, nb, cap_out=2048)
     keys, cnts = np_count(np.concatenate([a, b]))
     n = int(n)
     assert not bool(ov)
@@ -125,7 +127,7 @@ def test_merge_tables_planes_different_caps():
     pb, cb_j, nb = pad_planes_pow2(to_planes(kb), jnp.asarray(cb),
                                    min_cap=32)
     out_p, counts, n, _ = merge_tables_planes(
-        pa, ca_j, na, pb, cb_j, nb, cap_out=256, use_pallas=False)
+        pa, ca_j, na, pb, cb_j, nb, cap_out=256)
     keys, cnts = np_count(np.concatenate([a, b]))
     assert int(n) == len(keys)
     assert (from_planes(out_p, int(n)) == keys).all()
@@ -140,9 +142,9 @@ def test_count_planes_blocked_matches_single(spare):
     valid = rng.random(n) > 0.15
     planes = to_planes(vals)
     ref = count_planes(planes, jnp.asarray(valid), spare_bits=spare,
-                       cap_out=2048, use_pallas=False)
+                       cap_out=2048)
     got = count_planes(planes, jnp.asarray(valid), spare_bits=spare,
-                       cap_out=2048, use_pallas=False, blocked=True)
+                       cap_out=2048, blocked=True)
     assert not bool(got[3]) and not bool(ref[3])
     assert int(got[2]) == int(ref[2])
     for a, b in zip(got[0], ref[0]):

@@ -134,8 +134,8 @@ def test_simplify_whole_genome_exact(tmp_path):
     assert len(ref) > 15_000  # non-vacuous
 
 
-@pytest.mark.skipif(not os.environ.get("GATB_TPU_SLOW_TESTS"),
-                    reason="slow (set GATB_TPU_SLOW_TESTS=1)")
+@pytest.mark.skipif(not os.environ.get("GATB_SLOW_TESTS"),
+                    reason="slow (set GATB_SLOW_TESTS=1)")
 @pytest.mark.parametrize("op,kw", [
     ("tips", dict(do_bulges=False, do_ec=False)),
     ("ec", dict(do_tips=False, do_bulges=False)),
@@ -155,8 +155,8 @@ def test_simplify_reads1_per_op_exact(test_db, tmp_path, op, kw):
     assert ours == ref
 
 
-@pytest.mark.skipif(not os.environ.get("GATB_TPU_SLOW_TESTS"),
-                    reason="slow (set GATB_TPU_SLOW_TESTS=1)")
+@pytest.mark.skipif(not os.environ.get("GATB_SLOW_TESTS"),
+                    reason="slow (set GATB_SLOW_TESTS=1)")
 def test_simplify_reads1_full_near_exact(test_db, tmp_path):
     """Full schedule on reads1 a=1: equal surviving-set SIZES up to the
     twin-tie ambiguity (< 1% of kmers on this adversarial fixture)."""
@@ -171,8 +171,8 @@ def test_simplify_reads1_full_near_exact(test_db, tmp_path):
     assert len(ref - ours) < 0.01 * len(ref)
 
 
-@pytest.mark.skipif(not os.environ.get("GATB_TPU_SLOW_TESTS"),
-                    reason="slow: 600k solid kmers (set GATB_TPU_SLOW_TESTS=1)")
+@pytest.mark.skipif(not os.environ.get("GATB_SLOW_TESTS"),
+                    reason="slow: 600k solid kmers (set GATB_SLOW_TESTS=1)")
 def test_simplify_reads3_scale(test_db):
     """Real-read scale (reads3: 601,710 solid kmers at k=21 a=2, 15,908
     unitigs): full simplify schedule within 0.5% of the reference

@@ -67,3 +67,37 @@ def test_file_storage_reference_layout(tmp_path):
 def test_factory_mode_errors(tmp_path):
     with pytest.raises(ValueError):
         StorageFactory.create(str(tmp_path / "x"), mode="nope")
+
+
+def test_file_group_contains_subgroups(tmp_path):
+    st = FileStorage(str(tmp_path / "s"), "w")
+    st.group("outer").group("inner").set_property("x", 1)
+    assert "outer" in st
+    assert "inner" in st.group("outer")
+    assert "absent" not in st and "inn" not in st.group("outer")
+
+
+@pytest.mark.parametrize("name,kind", [("g.h5", "hdf5"), ("g", "file")])
+def test_open_storage_picks_backend_by_suffix(tmp_path, name, kind):
+    from gatb_core_tpu.storage import hdf5
+    from gatb_core_tpu.storage.filedir import open_storage
+
+    if kind == "hdf5" and not hdf5.HAVE_H5PY:
+        pytest.skip("h5py not installed")
+    st = open_storage(str(tmp_path / name), "w")
+    st.group("dsk").set_property("nb", 3)
+    st.close()
+    again = open_storage(str(tmp_path / name), "r")
+    assert isinstance(again, hdf5.Storage if kind == "hdf5"
+                      else FileStorage)
+    assert again.group("dsk").get_property("nb") == 3
+    again.close()
+
+
+def test_h5_path_without_h5py_names_the_package(tmp_path, monkeypatch):
+    from gatb_core_tpu.storage import hdf5
+    from gatb_core_tpu.storage.filedir import open_storage
+
+    monkeypatch.setattr(hdf5, "HAVE_H5PY", False)
+    with pytest.raises(RuntimeError, match="h5py"):
+        open_storage(str(tmp_path / "g.h5"), "w")

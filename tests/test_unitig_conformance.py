@@ -69,8 +69,8 @@ def test_unitig_set_vs_reference_binary(name, test_db):
     assert _blob(pairs) == sha_exp
 
 
-@pytest.mark.skipif(not __import__("os").environ.get("GATB_TPU_SLOW_TESTS"),
-                    reason="slow: 4.9M kmers (set GATB_TPU_SLOW_TESTS=1)")
+@pytest.mark.skipif(not __import__("os").environ.get("GATB_SLOW_TESTS"),
+                    reason="slow: 4.9M kmers (set GATB_SLOW_TESTS=1)")
 def test_unitig_set_reads3_scale(test_db):
     """4.9M-kmer scale: 15,908 unitigs, set + km:f equality vs the
     reference pipeline (rotation-normalized: reads3 contains tandem-
